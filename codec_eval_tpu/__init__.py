@@ -1,11 +1,11 @@
-"""codec-eval-tpu: TPU-native image-codec quality evaluation framework.
+"""codec-eval-tpu: accelerator-native image-codec quality evaluation framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 ``codec-eval`` Rust workspace (see SURVEY.md): callback-based codec
 evaluation sessions, perceptual metrics (SSIMULACRA2, DSSIM, Butteraugli,
 PSNR) as fused device kernels, viewing-condition modelling, rate-distortion
 analytics (Pareto fronts, BD-rate, R-D knees), corpus management, CSV
-import, and reporting — with the scoring grid sharded over a TPU device
+import, and reporting — with the scoring grid sharded over a device
 mesh.
 
 The public surface mirrors the reference crate root re-exports

@@ -13,7 +13,7 @@ rd_compare}.rs):
 - ``rd_compare``: matched-bpp (not matched-quality) comparison at fixed bpp
   targets via per-image curve interpolation.
 
-The hot loop everywhere is the same TPU pattern: one fused device batch per
+The hot loop everywhere is the same device pattern: one fused device batch per
 (image, codec) scoring the whole quality sweep against the precomputed
 reference — replacing the reference's rayon fan-out of per-pair SIMD calls.
 """

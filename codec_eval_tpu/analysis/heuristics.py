@@ -9,7 +9,7 @@ directional complexity).
 The reference computes these with scalar Rust loops per image; here the
 whole feature stack is ONE jitted XLA program of vectorized slices /
 reshapes / reductions — and ``heuristics_batch`` maps it over a corpus
-batch, which is the TPU-native replacement for its per-image CLI loop.
+batch, which is the device-side replacement for its per-image CLI loop.
 """
 
 from __future__ import annotations

@@ -278,7 +278,7 @@ def cmd_target(args) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="codec-iter", description="fast encoder iteration (TPU-scored)"
+        prog="codec-iter", description="fast encoder iteration (device-scored)"
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 

@@ -5,7 +5,7 @@ Behavioral port of reference: crates/codec-compare/src/rd_calibrate.rs:53-379
 per-quality corpus-mean curve, detect the SSIMULACRA2/Butteraugli knees,
 plot the dark-theme R-D SVG, and print ready-to-paste calibration code.
 
-TPU redesign of the hot path: the reference fans the (image x quality) grid
+Accelerator redesign of the hot path: the reference fans the (image x quality) grid
 over rayon threads with per-pair native metric calls; here each image's full
 quality sweep is scored in one fused device batch (SSIMULACRA2 + Butteraugli
 in the same program), and per-quality corpus means reduce on host from the

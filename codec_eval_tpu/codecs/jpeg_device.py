@@ -6,7 +6,7 @@ framework's conventional callback path (PIL).  This module splits the
 decode at the natural boundary instead: the host runs only the entropy
 decode (native/jpeg_huff_decode.cpp — baseline and progressive, ~3-5x
 cheaper than a full libjpeg decode), and dequantization + inverse DCT +
-fancy chroma upsampling run on the TPU as one jitted program
+fancy chroma upsampling run on the device as one jitted program
 (kernels/jpeg_enc.build_jpeg_decode).  For scoring pipelines this keeps
 decoded pixels device-resident: `decode_jpeg_to_device` hands back the
 planar (3, H, W) u8 array the chunk scorer consumes directly, and

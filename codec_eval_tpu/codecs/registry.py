@@ -127,7 +127,7 @@ class CodecRegistry:
             count += self.register_codec(jpegli_stub())
         if f.zenjpeg:
             # The reference's zenjpeg slot (pure-software jpegli-style
-            # encoder) is filled by tpujpeg: TPU transform path + native
+            # encoder) is filled by tpujpeg: device transform path + native
             # Huffman (codecs/tpujpeg.py).
             from .tpujpeg import TpuJpegCodec
 

@@ -1,11 +1,11 @@
-"""tpujpeg: the TPU-native jpegli-style JPEG encoder adapter.
+"""tpujpeg: the device-side jpegli-style JPEG encoder adapter.
 
 Fills the role the reference gives its zenjpeg crate — a self-built,
 jpegli-style pure-software JPEG encoder in the comparison ladder
 (reference: crates/codec-compare/src/encoders/zenjpeg.rs:10-58,
-crates/codec-iter/src/config.rs:5-67).  Architecture is TPU-first rather
+crates/codec-iter/src/config.rs:5-67).  Architecture is device-first rather
 than a translation: the quality-independent analysis (YCbCr, subsampling,
-all 8x8 forward DCTs as batched MXU matmuls, the psychovisual activity
+all 8x8 forward DCTs as batched matmuls, the psychovisual activity
 field) runs as one jitted device program per image
 (kernels/jpeg_enc.build_transform); per-quality work is a cheap host
 quantization pass plus the native C++ optimized-Huffman entropy coder
@@ -80,7 +80,7 @@ def is_available() -> bool:
 
 
 class TpuJpegCodec(CodecImpl):
-    """jpegli-style baseline JPEG encoder with a TPU transform path.
+    """jpegli-style baseline JPEG encoder with a device transform path.
 
     Parameters
     ----------

@@ -1,7 +1,7 @@
 """EvalSession: the core callback-based evaluation engine.
 
 Behavioral port of the reference's engine (reference:
-src/eval/session.rs:280-585) with a TPU-first inner loop: codecs remain
+src/eval/session.rs:280-585) with a device-first inner loop: codecs remain
 opaque host-side callbacks (the reference's key architectural contract,
 src/eval/session.rs:181-186), but metric scoring is *batched* — all decoded
 candidates of an image are staged into one padded device batch and scored in

@@ -1,5 +1,5 @@
 """Device-resident R-D sweep: encode, decode, and score a whole tpujpeg
-quality ladder without candidate pixels ever leaving the TPU.
+quality ladder without candidate pixels ever leaving the device.
 
 This is the capability the reference cannot have: its eval loop round-trips
 every (codec, quality) candidate through host RAM between the codec and the
@@ -103,8 +103,8 @@ def evaluate_tpujpeg_sweep(
 
     if colorspace == "xyb":
         subsampling = "444"
-    # Planar candidates + the planar scorer variant: channel-last u8
-    # batches tile poorly on TPU, and the coefficient outputs are dropped
+    # Planar candidates + the planar scorer variant (the layout every
+    # metric consumes), and the coefficient outputs are dropped
     # from the program entirely when no byte sizes are needed.
     recon = _je.build_reconstruct_sweep(
         h, w, n_q, subsampling, colorspace,

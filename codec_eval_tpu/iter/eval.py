@@ -1,11 +1,11 @@
 """Fast encoder-iteration eval loop (the codec-iter core).
 
-TPU-native rebuild of reference: crates/codec-iter/src/eval.rs:12-192.
+Accelerator rebuild of reference: crates/codec-iter/src/eval.rs:12-192.
 Structure kept: a minimal ``Codec`` (encode/decode closures + summary), an
 ``EvalPoint`` row per (image, quality), and a run that reuses the source
 image's SSIMULACRA2 reference precompute across the whole quality sweep.
 
-TPU redesign of the hot path: instead of scoring pair-by-pair (CPU SIMD or
+Accelerator redesign of the hot path: instead of scoring pair-by-pair (CPU SIMD or
 the CUDA stream of gpu.rs), ALL quality levels of an image are decoded on
 the host and scored in one fused device batch against the precomputed
 reference pyramid.  Host encode/decode of the *next* image overlaps device
@@ -121,8 +121,7 @@ def run_eval(
         return EvalResult(config_summary=codec.summary, points=[], total_ms=0)
 
     # ssimulacra2_batch shares the reference precompute across the quality
-    # sweep (the Ssimulacra2Reference amortization, eval.rs:138-149) and on
-    # TPU routes to the fused Pallas sweep kernel (~1.1-1.35x the XLA path).
+    # sweep (the Ssimulacra2Reference amortization, eval.rs:138-149).
     score_sweep = jax.jit(ssimulacra2_batch)
 
     t_start = time.perf_counter()

@@ -1,4 +1,4 @@
-"""L0 metric kernels: pure JAX/XLA/Pallas compute (SURVEY.md §7 L0k)."""
+"""L0 metric kernels: pure JAX/XLA compute (SURVEY.md §7 L0k)."""
 
 from .color import (
     linear_rgb_to_xyb,

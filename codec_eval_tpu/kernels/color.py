@@ -1,9 +1,9 @@
 """Color-space math as pure JAX kernels (sRGB <-> linear, XYB opsin space).
 
-TPU-native replacement for the reference's per-pixel Rust loops
+Accelerator replacement for the reference's per-pixel Rust loops
 (reference: src/metrics/xyb.rs:33-164, src/eval/helpers.rs:45-67).  Everything
 here is shape-polymorphic over a trailing channel axis of size 3, traceable
-under ``jit``/``vmap``, and runs entirely on the VPU — no host transfers.
+under ``jit``/``vmap``, and runs entirely on device — no host transfers.
 
 The XYB constants are the frozen JPEG XL / butteraugli opsin-absorbance
 parameters (public constants; see jxl ``cms/opsin_params.h``).
@@ -92,10 +92,10 @@ def mixed_cbrt(v: jnp.ndarray) -> jnp.ndarray:
 def linear_rgb_to_xyb(rgb: jnp.ndarray) -> jnp.ndarray:
     """Linear RGB (..., 3) -> XYB (..., 3).
 
-    The 3x3 matrix is applied as elementwise FMA chains on the VPU rather
-    than a matmul: a (..., 3) @ (3, 3) contraction would otherwise ride the
-    MXU at bf16 input precision on TPU, costing ~1e-3 relative error —
-    far above metric tolerance.
+    The 3x3 matrix is applied as elementwise FMA chains rather than a
+    matmul: a (..., 3) @ (3, 3) contraction would otherwise run at the
+    matrix units' default reduced precision (bf16 or TF32), costing ~1e-3
+    relative error — far above metric tolerance.
 
     reference: src/metrics/xyb.rs:104-129.
     """

@@ -1,6 +1,6 @@
 """DSSIM (structural dissimilarity) — dssim-core's recipe as fused JAX/XLA.
 
-TPU-native replacement for the scoring path the reference delegates to the
+Accelerator replacement for the scoring path the reference delegates to the
 SIMD ``dssim-core`` crate (reference: src/metrics/dssim.rs:40-70).  Returns
 ``1/ssim - 1`` (0 = identical, larger = worse).
 

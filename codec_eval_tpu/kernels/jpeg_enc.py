@@ -1,10 +1,10 @@
-"""TPU-side JPEG analysis/transform path for the tpujpeg encoder.
+"""Device-side JPEG analysis/transform path for the tpujpeg encoder.
 
 The reference fills its "jpegli-style pure-software encoder" slot with the
 zenjpeg crate (reference: crates/codec-compare/src/encoders/zenjpeg.rs:10-58,
-crates/codec-iter/src/config.rs:5-67).  This module is the TPU-native analog
+crates/codec-iter/src/config.rs:5-67).  This module is the accelerator analog
 of that encoder's *analysis half*: everything quality-independent — color
-conversion, chroma subsampling, the 8x8 forward DCTs (two MXU matmuls per
+conversion, chroma subsampling, the 8x8 forward DCTs (two matmuls per
 block axis), and the per-block psychovisual activity field used for adaptive
 rounding — runs as ONE jitted program per image.  The host then quantizes
 the returned coefficient planes per quality (cheap elementwise numpy) and
@@ -17,10 +17,11 @@ re-encodes the same image at 25 qualities; the DCT and the activity field
 are quality-invariant, so the device computes them once and the per-quality
 work collapses to a rounding pass + Huffman.  The DCT itself is a pair of
 (8,8) matmul contractions applied to every block — batched over all blocks
-of the image, which XLA tiles onto the MXU.
+of the image, which XLA hands to its matrix kernels.
 
 All math is f32 with HIGHEST matmul precision: quantized coefficients must
-be exact integers, and bf16 MXU rounding would perturb round() decisions
+be exact integers, and reduced-precision (bf16/TF32) matmul rounding
+would perturb round() decisions
 near .5 boundaries (same pitfall as the opsin matmul fix documented in
 ROADMAP.md).
 """
@@ -223,7 +224,7 @@ def _zigzag_dct_matrix() -> np.ndarray:
       inverse:  f_flat = F_zz @ W          (rows of W are orthonormal)
     One (n_blocks, 64) @ (64, 64) contraction per plane instead of two
     8-point einsums plus a 64-way gather — the gather (inverse zigzag) is
-    the expensive part on TPU, and the matmul shape is MXU-native.
+    the expensive part, and the matmul shape suits the matrix units.
     Computed in float64, applied in f32 at HIGHEST precision.
     """
     c = dct8_matrix().astype(np.float64)
@@ -255,7 +256,7 @@ def _dct_blocks(blocks: jnp.ndarray, cmat: jnp.ndarray) -> jnp.ndarray:
     """Forward DCT over (..., 8, 8) blocks: C f C^T as two contractions.
 
     HIGHEST precision: coefficient values feed integer rounding decisions,
-    so the default bf16 MXU path is not acceptable here.
+    so a reduced-precision (bf16/TF32) matmul is not acceptable here.
     """
     t = jnp.einsum(
         "ux,...xy->...uy", cmat, blocks, precision=jax.lax.Precision.HIGHEST
@@ -421,10 +422,8 @@ def _unblockify(blocks: jnp.ndarray) -> jnp.ndarray:
 @functools.lru_cache(maxsize=None)
 def _triangle_up_matrix(n: int) -> np.ndarray:
     """(n, 2n) triangle-upsample operator: out[2i] = .75 in[i] + .25
-    in[i-1], out[2i+1] = .75 in[i] + .25 in[i+1], edges clamped.  Rides
-    the MXU; .75/.25 are exact in bf16 so the HIGHEST 6-pass split keeps
-    f32 accuracy.  Lane-dim interleaving via stack/reshape or repeat
-    lowers to shuffles that measured 2-4x slower in the ladder."""
+    in[i-1], out[2i+1] = .75 in[i] + .25 in[i+1], edges clamped.  Applied
+    as a matmul at HIGHEST precision, so the products keep f32 accuracy."""
     a = np.zeros((n, 2 * n), np.float32)
     i = np.arange(n)
     a[i, 2 * i] += 0.75
@@ -435,7 +434,7 @@ def _triangle_up_matrix(n: int) -> np.ndarray:
 
 
 def _triangle_up_h(plane: jnp.ndarray) -> jnp.ndarray:
-    """2x triangle ("fancy") upsample along the width axis as an MXU
+    """2x triangle ("fancy") upsample along the width axis as a
     matmul against the sparse upsample operator (same trick as
     blur.pair_mean_matrix in the downscale direction)."""
     uw = jnp.asarray(_triangle_up_matrix(plane.shape[1]))  # (w, 2w)
@@ -504,7 +503,7 @@ def build_reconstruct_sweep(
     Returns fn(rgb_u8 (H, W, 3), qtabs (n_q, 2, 64) natural-order f32,
     aq_strength scalar f32 (0 = plain rounding)) ->
       (candidates (n_q, H, W, 3) u8 — or (n_q, 3, H, W) with
-       planar_candidates=True, the TPU-friendly layout the planar chunk
+       planar_candidates=True, the layout the planar chunk
        scorer consumes directly (channel-last u8 tiles poorly),
        coeffs {y/cb/cr: (n_q, by, bx, 64) int16 zigzag} — or {} with
        with_coefs=False, which lets XLA drop the int16 outputs entirely
@@ -910,10 +909,10 @@ def trellis_quantize_dev(
     """Device (jittable/vmappable) trellis DP, same objective as
     ``trellis_quantize_blocks`` — used by the device-resident ladder.
 
-    TPU-shaped reformulation of the DP step: the (run, size) bit lookup is
-    a one-hot (B, 11) x (11, 63) matmul against a run-table followed by a
-    flip+roll realignment (gathers and scatters are the expensive lowering
-    on TPU); state updates are iota-mask selects.  The rate model is a
+    Array-shaped reformulation of the DP step: the (run, size) bit lookup
+    is a one-hot (B, 11) x (11, 63) matmul against a run-table followed by
+    a flip+roll realignment (no gathers or scatters); state updates are
+    iota-mask selects.  The rate model is a
     STATIC table — the fitted-vs-fixed experiment measured the per-image
     Huffman fit worth 0.01 BD-rate points, so a corpus-level table loses
     nothing and keeps the whole ladder on device.  Returns f32 signed

@@ -373,8 +373,8 @@ def bucket_shapes(
 ) -> List[Tuple[int, int]]:
     """Assign each (h, w) to a padded bucket shape (multiples of
     ``granularity``).  Coarse granularity trades padding waste for fewer
-    compiled programs; 128 aligns W with the TPU lane dimension and keeps
-    five pyramid halvings even (any multiple of 32 does)."""
+    compiled programs; 128 keeps five pyramid halvings even (any
+    multiple of 32 does)."""
     g = granularity
     if g % 32:
         raise ValueError("granularity must be a multiple of 32")

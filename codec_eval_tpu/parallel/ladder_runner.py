@@ -3,15 +3,15 @@
 The multi-chip form of engine/tpu_sweep.py: a batch of same-size images is
 sharded over the mesh's batch axis; each device encodes, decodes, and
 scores its images' full quality ladders locally (shard_map — per-shard
-shapes equal the single-image path, so the Pallas kernels run unchanged),
+shapes equal the single-image path, so every kernel runs unchanged),
 and only quantized coefficients return to the host, where the native
 Huffman coder produces exact byte sizes.
 
-This is the TPU-native replacement for the reference's calibration
+This is the accelerator replacement for the reference's calibration
 pipeline hot path — rayon threads fanning mozjpeg encodes + CPU metric
 kernels over a corpus (reference: crates/codec-compare/src/rd_calibrate.rs:
 184-216) — with the whole encode/decode/score inner loop on the
-accelerator and ICI collectives in place of thread joins for the corpus
+accelerator and device collectives in place of thread joins for the corpus
 means.
 """
 
@@ -144,10 +144,11 @@ def sweep_corpus_ladders(
         h, w, want["dssim"], want["ssimulacra2"], want["butteraugli"], False
     )
     # Score-chunk the quality axis for large images: the all-metric scorer's
-    # temporaries scale with (candidates x pixels), and a full 12-quality
-    # ladder at 2048px measured 20 GB of HBM temps (an OOM).  ~21 Mpix of
-    # candidates per scoring sub-call is proven at both 512px (25-cand
-    # chunks) and 2048px (5-cand chunks).
+    # temporaries scale with (candidates x pixels).  21 Mpix of candidates
+    # per scoring sub-call scores a 512px ladder of up to 80 qualities in
+    # one sub-call and gives 2048px sub-calls of 5 candidates, below the
+    # 8-candidate 2048px chunk program that chip_smoke.py runs on the GPU
+    # (device memory per candidate pixel on an H100 is in PERF.md).
     import os as _os
 
     budget_px = int(_os.environ.get("CODEC_EVAL_LADDER_SCORE_PX", "21000000"))
@@ -185,8 +186,8 @@ def sweep_corpus_ladders(
     # Per-chunk SPMD step: each device loops its local images with the
     # exact single-image programs (no extra batch rank on the kernels).
     # The local unroll scales DOWN with image area — XLA overlaps the
-    # unrolled iterations and their live sets add up (8 x 2048px ladders
-    # measured an HBM OOM; 8 x 512px is the proven default).  It never
+    # unrolled iterations and their live sets add up, so the default of 8
+    # is sized for 512px images.  It never
     # scales up: each extra unrolled image retraces the whole pipeline,
     # so small images would pay compile time for no throughput.
     if h * w > 512 * 512:
@@ -212,7 +213,7 @@ def sweep_corpus_ladders(
         )
         coefs = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *coef_rows)
         if multihost:
-            # All-gather over ICI/DCN so every process can read the full
+            # All-gather over the mesh so every process can read the full
             # chunk results (each process's devices then hold replicas).
             gather = lambda x: jax.lax.all_gather(x, "batch", axis=0, tiled=True)
             scores = jax.tree_util.tree_map(gather, scores)

@@ -1,21 +1,22 @@
 """Device-mesh sharding for corpus-scale scoring.
 
-The TPU-native replacement for the reference's process parallelism (rayon
+The accelerator replacement for the reference's process parallelism (rayon
 fan-out over images, rd_calibrate.rs:184-216; one optional CUDA stream,
 gpu.rs): the (image x codec x quality) score grid is laid out as a batch of
 decoded pairs, sharded over a ``jax.sharding.Mesh``, and scored SPMD.  Corpus
 aggregates (the mean R-D curve that rd-calibrate computes on the host) come
-back via on-device ``psum`` over ICI rather than host-side reduction.
+back via on-device ``psum`` over the device interconnect rather than
+host-side reduction.
 
 Two mesh axes:
 
 - ``batch``: data parallelism over pairs (the dominant axis; each device
   scores its shard of the grid).
 - ``space``: optional spatial sharding over image rows for images too large
-  for one device's share of HBM/VMEM.  The metric pipelines are convolutions
+  for one device's share of device memory.  The metric pipelines are convolutions
   and elementwise maps, so XLA's SPMD partitioner inserts the halo exchanges
   automatically — no hand-written collectives needed (the scaling-book
-  recipe: annotate shardings, let XLA place collectives on ICI).
+  recipe: annotate shardings, let XLA place the collectives).
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def sharded_score_fn(
     Returns ``step(refs, dists) -> dict`` where refs/dists are (N, H, W, 3)
     u8 batches (N divisible by the batch-axis size).  Output contains
     per-pair scores (sharded) and corpus-mean aggregates (replicated,
-    reduced on-device via the mesh's ICI collectives).
+    reduced on-device via the mesh's collectives).
 
     Calls with the same mesh (same device tuple, shape and axis names) and
     the same metric flags return the SAME jit object, so its compiled

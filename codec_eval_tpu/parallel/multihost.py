@@ -1,10 +1,11 @@
 """Multi-host (DCN) corpus sharding.
 
 The reference is single-process (SURVEY.md §2.5: no distributed backend);
-the TPU-native scale-out story is: one JAX process per host, a global mesh
-whose batch axis spans all hosts' devices, corpus images partitioned across
-hosts, and on-device aggregation — ICI inside a slice, DCN only for the
-cross-host legs XLA chooses to place there.
+the scale-out story here is: one JAX process per host, a global mesh whose
+batch axis spans all hosts' devices, corpus images partitioned across
+hosts, and on-device aggregation — the fast intra-host links inside a host,
+the data-center network only for the cross-host legs XLA chooses to place
+there.
 
 This module cannot be exercised on single-host CI; the mesh/aggregation
 machinery itself is covered by the virtual-device tests in
@@ -25,8 +26,9 @@ def initialize_distributed(
 ) -> None:
     """Bring up jax.distributed (idempotent).
 
-    With no arguments, relies on the cluster environment (TPU pod metadata /
-    JAX_COORDINATOR_ADDRESS et al.).
+    With no arguments, relies on the cluster environment
+    (JAX_COORDINATOR_ADDRESS et al.); a plain host with no cluster manager
+    needs all three arguments.
     """
     import jax
 

@@ -1,9 +1,9 @@
 """Golden Butteraugli oracle via the system libjxl C API (test/calibration only).
 
-The production Butteraugli metric in this framework is the TPU kernel in
+The production Butteraugli metric in this framework is the JAX kernel in
 ``codec_eval_tpu.kernels.butteraugli``.  This module binds the butteraugli
 implementation exported by the system's ``libjxl`` shared library purely as a
-*golden reference* for parity tests and constant calibration — the TPU build
+*golden reference* for parity tests and constant calibration — the JAX build
 must match it, the way the reference repo's wrapper matches the upstream
 butteraugli crate (reference: src/metrics/butteraugli.rs:45-135).
 

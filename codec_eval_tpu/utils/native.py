@@ -1,7 +1,7 @@
 """ctypes binding for the native host runtime (native/codec_eval_native.cpp)
 with pure-Python fallbacks.
 
-The native library accelerates host-side staging work around the TPU compute
+The native library accelerates host-side staging work around the device compute
 path: FNV-1a checksums, PPM cache IO, sRGB->linear LUT conversion, batch
 padding.  Build with ``make -C native``; everything degrades gracefully to
 numpy/Python when the .so is absent.

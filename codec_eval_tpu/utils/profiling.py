@@ -2,7 +2,7 @@
 
 The reference's observability is ad-hoc Instant timers around encode/decode
 (SURVEY.md §5); this module keeps those per-stage timers (they feed the
-``encode_ms``/``decode_ms`` report fields) and adds the TPU-native layer the
+``encode_ms``/``decode_ms`` report fields) and adds the device layer the
 reference lacks: ``jax.profiler`` trace capture around scoring dispatches,
 and a lightweight structured event log.
 """

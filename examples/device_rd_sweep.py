@@ -1,5 +1,5 @@
 """Device-resident R-D sweep: evaluate a tpujpeg quality ladder without
-candidate pixels ever leaving the TPU.
+candidate pixels ever leaving the device.
 
 The conventional loop (examples/basic_eval.py) round-trips every candidate
 through host RAM: encode -> decode -> stage to device -> score.  With the

@@ -8,15 +8,15 @@ test:
 test-fast:
     python -m pytest tests/test_kernels_color.py tests/test_engine.py -q
 
-# North-star benchmark on the real chip (prints one JSON line).
+# North-star benchmark on the GPU (prints one JSON line).
 bench:
     python bench.py
 
-# TPU preflight gate on the real chip: compile every production geometry,
-# Pallas-vs-XLA parity, oracle fixture on the device path.  Run before any
-# bench or kernel-change commit (CONTRIBUTING.md).
-preflight:
-    python tools/tpu_preflight.py
+# Smoke test on the GPU: session, ladder and 2048px paths at real size,
+# parity against the CPU float32 reference, oracle fixture on the device
+# path.  Run before any bench or kernel-change commit (CONTRIBUTING.md).
+smoke:
+    python chip_smoke.py
 
 # Single-chip compile check + 8-device CPU dry run.
 graft:
@@ -41,6 +41,6 @@ apidoc-check:
 native:
     make -C native
 
-# Perf probe on the real chip.
-perf:
-    python tools/perf_probe.py
+# Stage times and kernel A/Bs on the GPU.
+stage-times:
+    python tools/gpu_stage_times.py

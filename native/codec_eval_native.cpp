@@ -1,6 +1,6 @@
 // Native host-side runtime for codec-eval-tpu.
 //
-// The TPU owns the metric math (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the metric math (JAX/XLA); this library owns the
 // host-side hot paths around it, the role the reference fills with native
 // Rust crates (SURVEY.md §2.4): corpus checksumming (FNV-1a, reference
 // src/corpus/checksum.rs), the PPM fast-decode cache (reference

@@ -1,6 +1,6 @@
 // Baseline JPEG entropy coder: the host half of the tpujpeg encoder.
 //
-// The TPU computes the quality-independent analysis (YCbCr, 8x8 DCTs,
+// The device computes the quality-independent analysis (YCbCr, 8x8 DCTs,
 // activity field — kernels/jpeg_enc.py); the host quantizes per quality and
 // this file turns quantized coefficient planes into a JFIF bytestream with
 // two-pass OPTIMIZED Huffman tables (histogram -> canonical length-limited

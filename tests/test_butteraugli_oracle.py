@@ -6,7 +6,7 @@ banding/sharpen/rescale/color-cast families — together with the system
 libjxl butteraugli oracle's scores, captured at generation time by
 ``tools/gen_butteraugli_goldens.py``.
 
-This test scores every pair with the TPU kernel and asserts the relative
+This test scores every pair with the JAX kernel and asserts the relative
 error DISTRIBUTION against the stored oracle values, so the round-2 parity
 achievement (median 0.006% / max ~1% on this fixture) cannot silently
 regress: no libjxl is needed at test time, and no human has to remember to

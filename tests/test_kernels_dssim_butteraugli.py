@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import pytest
 from PIL import Image
 
+from codec_eval_tpu.kernels import butteraugli as ba
 from codec_eval_tpu.kernels.butteraugli import butteraugli
 from codec_eval_tpu.kernels.color import srgb_u8_to_linear
 from codec_eval_tpu.kernels.dssim import dssim, dssim_u8
@@ -136,3 +137,70 @@ def test_dssim_image_helpers():
     o2 = rgba8_to_dssim_image(rgba, 2, 1)
     assert o2[0, 0, 3] == pytest.approx(64 / 255.0)
     assert np.allclose(o2[..., :3], out[..., :3], atol=1e-6)
+
+
+def test_malta_stack_xla_matches_percall_sweeps():
+    """The stacked formulation reproduces the six individual _malta_diff_map
+    calls of _diffmap_psycho exactly (same prologue, same sweeps)."""
+    rng = np.random.default_rng(4)
+    h = w = 40
+
+    def pi(seed):
+        r = np.random.default_rng(seed)
+        return ba.PsychoImage(
+            uhf=jnp.asarray(r.normal(0, 1, (2, h, w)).astype(np.float32)),
+            hf=jnp.asarray(r.normal(0, 1, (2, h, w)).astype(np.float32)),
+            mf=jnp.asarray(r.normal(0, 1, (3, h, w)).astype(np.float32)),
+            lf=jnp.asarray(r.normal(0, 1, (3, h, w)).astype(np.float32)),
+        )
+
+    pi0, pi1 = pi(1), pi(2)
+    a = 0.8
+    stack = ba._malta_diffs_stack(pi0, pi1, a)
+    got = np.asarray(ba._malta_ac_stack_xla(stack))
+
+    aj = jnp.float32(a)
+    sqrt_a = jnp.sqrt(aj)
+    ac1 = ba._malta_diff_map(
+        pi0.uhf[1], pi1.uhf[1], ba._W_UHF_MALTA * aj, ba._W_UHF_MALTA / aj,
+        ba._NORM1_UHF, ba._MALTA_MULLI, ba._MALTA_LINES_FULL)
+    ac0 = ba._malta_diff_map(
+        pi0.uhf[0], pi1.uhf[0], ba._W_UHF_MALTA_X * aj, ba._W_UHF_MALTA_X / aj,
+        ba._NORM1_UHF_X, ba._MALTA_MULLI, ba._MALTA_LINES_FULL)
+    ac1 = ac1 + ba._malta_diff_map(
+        pi0.hf[1], pi1.hf[1], ba._W_HF_MALTA * sqrt_a, ba._W_HF_MALTA / sqrt_a,
+        ba._NORM1_HF, ba._MALTA_MULLI_LF, ba._MALTA_LINES_LF)
+    ac0 = ac0 + ba._malta_diff_map(
+        pi0.hf[0], pi1.hf[0], ba._W_HF_MALTA_X * sqrt_a, ba._W_HF_MALTA_X / sqrt_a,
+        ba._NORM1_HF_X, ba._MALTA_MULLI_LF, ba._MALTA_LINES_LF)
+    ac1 = ac1 + ba._malta_diff_map(
+        pi0.mf[1], pi1.mf[1], ba._W_MF_MALTA, ba._W_MF_MALTA,
+        ba._NORM1_MF, ba._MALTA_MULLI_LF, ba._MALTA_LINES_LF)
+    ac0 = ac0 + ba._malta_diff_map(
+        pi0.mf[0], pi1.mf[0], ba._W_MF_MALTA_X, ba._W_MF_MALTA_X,
+        ba._NORM1_MF_X, ba._MALTA_MULLI_LF, ba._MALTA_LINES_LF)
+    want = np.stack([np.asarray(ac0), np.asarray(ac1)])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_butteraugli_batch_matches_single():
+    rng = np.random.default_rng(5)
+    h = w = 32
+    ref = rng.integers(0, 256, (h, w, 3), np.uint8)
+    batch = np.stack(
+        [
+            np.clip(
+                ref.astype(np.int16) + rng.integers(-25, 26, ref.shape), 0, 255
+            ).astype(np.uint8)
+            for _ in range(2)
+        ]
+    )
+    pre = ba.precompute_butteraugli_reference(jnp.asarray(ref))
+    want = np.array(
+        [
+            float(ba.butteraugli_against_reference(pre, jnp.asarray(d)))
+            for d in batch
+        ]
+    )
+    got = np.asarray(ba.butteraugli_batch(pre, jnp.asarray(batch)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

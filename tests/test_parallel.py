@@ -1,6 +1,6 @@
 """Device-mesh parallelism tests on the virtual 8-device CPU mesh
 (the reference has no distributed layer to mirror — SURVEY.md §2.5 — so
-these validate the TPU-native replacement directly)."""
+these validate the accelerator replacement directly)."""
 
 import numpy as np
 import jax

@@ -27,7 +27,7 @@ def _photo(h, w, seed=7):
 
 
 def test_dct_matches_scipy_style_reference():
-    """The MXU DCT must agree with a direct T.81 A.3.3 evaluation."""
+    """The matmul DCT must agree with a direct T.81 A.3.3 evaluation."""
     rng = np.random.default_rng(0)
     block = rng.uniform(-128, 127, (8, 8)).astype(np.float32)
     c = je.dct8_matrix().astype(np.float64)

@@ -41,7 +41,9 @@ def main() -> int:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from codec_eval_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from codec_eval_tpu import ImageData, MetricConfig
     from codec_eval_tpu.codecs.tpujpeg import TpuJpegCodec

@@ -37,7 +37,9 @@ def main() -> None:
                         "trig-pattern bases")
     args = parser.parse_args()
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from codec_eval_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from codec_eval_tpu.codecs.pil_codecs import AvifCodec
     from codec_eval_tpu.engine import EncodeRequest, ImageData

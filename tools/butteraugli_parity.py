@@ -4,7 +4,7 @@ The round-1 build *calibrated* a structural surrogate; round 2 replaced it
 with a faithful port of the public algorithm (every constant recovered from
 the system library — see docs/butteraugli_algorithm_notes.md), so this tool
 now only *verifies*: it scores a diverse synthetic distortion corpus with
-both the TPU kernel and the libjxl golden oracle and reports the relative
+both the JAX kernel and the libjxl golden oracle and reports the relative
 error distribution (median / p90 / max) plus distmap agreement.
 
 Usage: python tools/butteraugli_parity.py [--size 192]
@@ -150,7 +150,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from codec_eval_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from codec_eval_tpu.kernels.butteraugli import butteraugli, butteraugli_distmap
     from codec_eval_tpu.utils import jxl_golden
 

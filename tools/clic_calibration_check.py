@@ -7,7 +7,7 @@ this tool drives the SAME pipeline — `rd-calibrate --device-sweep` (the
 device-resident tpujpeg ladder sharded over the mesh) — over a synthetic
 photo-statistics 2048px corpus (iter.source.photo_sources) and verifies:
 
-  1. the 2048px device path runs end to end (VMEM/tiling holds up);
+  1. the 2048px device path runs end to end (fits device memory);
   2. both knees are detected with finite bpp/score/angle;
   3. the knee is sane (bpp in [0.1, 3.0], s2 in [40, 95]).  The synthetic
      corpus knees sit HIGHER than CLIC's (measured 2026-08-19: s2 knee
@@ -39,7 +39,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from codec_eval_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from PIL import Image
 
     from codec_eval_tpu.cli.rd_calibrate import main as rd_main

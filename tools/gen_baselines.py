@@ -50,7 +50,9 @@ def main() -> int:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from codec_eval_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from codec_eval_tpu.iter import (
         build_codec,

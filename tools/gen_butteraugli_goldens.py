@@ -4,7 +4,7 @@ Builds a diverse set of (reference, distorted) u8 pairs — reusing the same
 synthetic bases and distortion families as tools/butteraugli_parity.py —
 scores each with the system libjxl butteraugli oracle, and commits BOTH the
 raw pixel pairs and the oracle scores to ``tests/goldens/butteraugli_oracle
-.npz``.  tests/test_butteraugli_oracle.py then asserts the TPU kernel's
+.npz``.  tests/test_butteraugli_oracle.py then asserts the JAX kernel's
 relative-error distribution against the STORED scores on every pytest run,
 with no libjxl (and no generator-version determinism) required at test time.
 
